@@ -38,8 +38,8 @@ import numpy as np  # noqa: E402
 
 from subcort_tpu.utils import enable_compilation_cache  # noqa: E402
 
-# per-degradation floors, set just below the measured r5 values (see
-# ROBUSTQUAL_r05.json) so drift trips the gate; "clean" is the undegraded
+# per-degradation floors, set just below the values the gate last measured
+# so drift trips the gate; "clean" is the undegraded
 # control (same subject, same pipeline) for context
 FLOORS = {
     "clean": 0.93,

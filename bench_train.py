@@ -4,7 +4,7 @@
 Reproduces the reference's effective training configuration (SURVEY.md §6:
 ~150k balanced boundary samples, effective batch 128 — nolearn's default,
 §2.3-5 — Adam 1e-3, 25% holdout) on synthetic data shaped like the real
-workload (HBM-resident subject volumes, device-side tri-planar gather), and
+workload (device-resident subject volumes, device-side tri-planar gather), and
 reports seconds/epoch against the reference's recorded history
 (~330.6 s/epoch mean on its unspecified CUDA GPU,
 nets/miccai2012_v1/miccai2012_v1_history.pkl 'dur' key).

@@ -1,9 +1,9 @@
-"""subcort_tpu — TPU-native sub-cortical brain-structure segmentation framework.
+"""subcort_tpu — sub-cortical brain-structure segmentation framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 sergivalverde/sub-cortical_segmentation (voxelwise 15-class sub-cortical
 segmentation of T1-w MRI; arXiv:1709.09075). The compute path is
-JAX/XLA/Pallas on TPU; the registration runtime is native C++
+JAX/XLA on an NVIDIA GPU; the registration runtime is native C++
 (see ``native/``). Nothing here is a translation of the reference's
 Theano/Lasagne code — the architecture is volume-resident and
 gather/scatter based rather than host-side patch-list based.

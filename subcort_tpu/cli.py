@@ -21,7 +21,7 @@ import sys
 
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="subcort_tpu",
-                                description="TPU-native sub-cortical segmentation")
+                                description="sub-cortical segmentation in JAX")
     p.add_argument("command",
                    choices=["train", "infer", "run", "evaluate", "loo",
                             "import-atlas"],

@@ -7,8 +7,8 @@ Preserves the reference's ``configuration.cfg`` contract bit-for-bit
 - Booleans arrive as the *strings* ``'True'``/``'False'`` and the reference
   compares them as strings (e.g. base.py:374 ``options['debug'] == 'True'``).
   We accept both spellings and real booleans, and expose typed accessors.
-- ``mode = cpu | cudaN | tpu`` selected the Theano device in the reference
-  (load_options.py:54-57). Here it maps onto a JAX platform preference; see
+- ``mode = cpu | cudaN`` selected the Theano device in the reference
+  (load_options.py:54-57). Here it maps onto the JAX platform; see
   :func:`select_platform`.
 
 Internally everything is a typed :class:`Options` dataclass; a dict-style
@@ -21,6 +21,7 @@ from __future__ import annotations
 import configparser
 import dataclasses
 import os
+import re
 from typing import Any, Iterator, Mapping
 
 
@@ -53,7 +54,7 @@ class Options(Mapping[str, Any]):
     save_tmp: bool = True
 
     # [model]
-    mode: str = "tpu"               # cpu | cudaN (compat) | tpu
+    mode: str = "cuda"              # cuda | cudaN | gpu | cpu
     patch_size: tuple = (32, 32)
     weight_paths: str | None = None
     train_split: float = 0.25
@@ -69,25 +70,25 @@ class Options(Mapping[str, Any]):
     post_process: bool = True
     crop: bool = True               # reference cfg key: speedup_segmentation
 
-    # --- TPU-native extensions (no reference analogue; defaults preserve
-    #     reference behavior) -------------------------------------------------
+    # --- framework extensions, the cfg's [tpu] section (no reference
+    #     analogue; defaults preserve reference behavior) ---------------------
     seed: int = 42                  # replaces the reference's unseeded RNG (base.py:322-328)
     compute_dtype: str = "float32"  # float32 | bfloat16 for the forward pass
     data_parallel: int = 1          # number of mesh devices for DP
     use_fcn: bool = True            # à-trous fully-convolutional fast path
     bugcompat_postprocess_argmax: bool = False  # reproduce base.py:474 quirk (§2.3-7)
     dilate_crop_iters: int = 10     # base.py:369 binary_dilation(iterations=10)
-    prior_dtype: str = "uint16"     # host->device prior wire: uint16 (fixed-point, most accurate+fastest) | float16 | uint8 | float32
+    prior_dtype: str = "uint16"     # host->device prior wire: uint16 (fixed-point, most accurate) | float16 | uint8 | float32
     probs_dtype: str = "uint8"      # device->host probability readback wire: uint8 (1/255-step fixed-point, half the bytes — labels are computed on device and unaffected) | float16 | float32 for full-precision prob maps
     cc_backend: str = "scipy"       # post-process connected components: scipy | device
-    folder_pipeline: bool = False   # pipelined folder sweep: prefetch the next scan's host prep + async writeback (bit-identical results; wins only on multi-core hosts — on a 1-core host the prefetch thread contends with the wire feed and LOSES ~2x, measured)
+    folder_pipeline: bool = False   # pipelined folder sweep: prefetch the next scan's host prep + async writeback (bit-identical results; pays only with spare host cores)
     fcn_max_bbox_voxels: int = 6_000_000  # dense-evaluator sub-slab budget
-    fcn_spmd: bool = True           # multi-device FCN: one sharded SPMD program over the ('data',) mesh (False: host sub-bbox fan-out — pipelines uploads on a slow host link)
+    fcn_spmd: bool = True           # multi-device FCN: one sharded SPMD program over the ('data',) mesh (False: host sub-bbox fan-out — pipelines per-slab uploads)
     debug_nans: bool = False        # jax_debug_nans: raise on first NaN (debug only)
     reg_backend: str = "native"     # deformable registration: native (C++) | jax (on-device)
     reg_similarity: str = "nmi"     # deformable-stage cost: nmi (default — the reference's reg_f3d is NiftyReg's NMI-driven FFD, base.py:516-521) | ssd (opt-in; wins on same-protocol pairs)
     train_dtype: str = "float32"    # training forward/backward: float32 | bfloat16 (f32 master)
-    intensity_augment: float = 0.0  # train-time intensity-robustness augmentation strength S (0 = off = reference-exact; 2.0 = validated sweet spot, see ROBUSTQUAL_AUG_r05.json); per-sample gain/shift shared across views + per-voxel noise — hardens the CNN against bias-field/remap/Rician covariate shift (see engine/train.py::_augment_intensity)
+    intensity_augment: float = 0.0  # train-time intensity-robustness augmentation strength S (0 = off = reference-exact; 2.0 = the strength bench_robust.py validated); per-sample gain/shift shared across views + per-voxel noise — hardens the CNN against bias-field/remap/Rician covariate shift (see engine/train.py::_augment_intensity)
 
     # ------------------------------------------------------------------ dict view
     def __getitem__(self, key: str) -> Any:
@@ -155,7 +156,7 @@ def load_options(user_config: configparser.RawConfigParser | str | os.PathLike) 
         t1_name=opt("database", "t1_name", "T1.nii.gz"),
         roi_name=opt("database", "roi_name", "gt_15_classes.nii.gz"),
         save_tmp=_as_bool(opt("database", "save_tmp", True)),
-        mode=opt("model", "mode", "tpu").strip(),
+        mode=opt("model", "mode", "cuda").strip(),
         patch_size=(ps, ps),
         train_split=float(opt("model", "train_split", 0.25, float)),
         max_epochs=int(opt("model", "max_epochs", 100, int)),
@@ -168,7 +169,7 @@ def load_options(user_config: configparser.RawConfigParser | str | os.PathLike) 
         out_probabilities=_as_bool(opt("model", "out_probabilities", False)),
         post_process=_as_bool(opt("model", "post_process", True)),
         crop=_as_bool(opt("model", "speedup_segmentation", True)),
-        # TPU-native extensions (optional keys in a [tpu] section)
+        # framework extensions (optional keys in a [tpu] section)
         seed=int(opt("tpu", "seed", 42, int)),
         compute_dtype=opt("tpu", "compute_dtype", "float32").strip(),
         data_parallel=int(opt("tpu", "data_parallel", 1, int)),
@@ -193,19 +194,24 @@ def load_options(user_config: configparser.RawConfigParser | str | os.PathLike) 
 
 
 def select_platform(options: Options) -> None:
-    """Map the reference's ``mode`` to a JAX platform preference.
+    """Map the reference's ``mode`` to the JAX platform.
 
     The reference selected its backend by exporting ``THEANO_FLAGS``
     (load_options.py:54-57). The JAX analogue is ``JAX_PLATFORMS``; it only
-    takes effect if set before the first jax import/backend initialization,
-    so call this at process start (the CLI does).
+    takes effect if set before the first backend initialization, so call
+    this at process start (the CLI does). An already-set ``JAX_PLATFORMS``
+    wins. ``cuda``/``cudaN``/``gpu`` select the GPU with no CPU fallback:
+    a run that asked for the GPU fails at start-up when it has none.
     """
-    mode = options.mode.lower()
-    if mode.startswith("cpu"):
-        os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    elif "cuda" in mode or "gpu" in mode:
-        os.environ.setdefault("JAX_PLATFORMS", "cuda,cpu")
-    # 'tpu' / default: let JAX pick the best available backend.
+    mode = options.mode.strip().lower()
+    if mode == "cpu":
+        platform = "cpu"
+    elif mode == "gpu" or re.fullmatch(r"cuda\d*", mode):
+        platform = "cuda"
+    else:
+        raise ValueError(f"mode = {options.mode!r} is not supported; use "
+                         "cuda, cudaN, gpu or cpu")
+    os.environ.setdefault("JAX_PLATFORMS", platform)
 
 
 def print_options(options: Options) -> None:

@@ -4,8 +4,8 @@ Reference counterparts: ``load_data`` / ``load_patches`` /
 ``load_patch_vectors`` / ``generate_training_set`` (cnn_cort/base.py:11-117,
 120-256). The reference materializes every training patch on the host
 (3 views x {image,label} x {pos,neg} numpy slicing) and ships patch tensors
-to the device per batch. The TPU-native design keeps *volumes* resident in
-HBM and gathers patches on device inside the jitted train step:
+to the device per batch. This design keeps *volumes* resident in device
+memory and gathers patches on device inside the jitted train step:
 
     TrainingIndex = stacked normalized volumes (S, X, Y, Z)
                   + centers (N, 4) [subject, x, y, z]
@@ -192,7 +192,7 @@ def generate_training_set(index: TrainingIndex, patch: int = 2 * HALF):
     ``generate_training_set`` output contract (base.py:53-117):
     (x_axial, x_cor, x_sag, x_atlas, y) with x_* shaped (N, 1, p, p).
 
-    Exists for API parity and differential testing; the TPU train loop never
+    Exists for API parity and differential testing; the train loop never
     calls it (patches are gathered on device).
     """
     n = len(index)

@@ -4,11 +4,9 @@ One implementation of (tri-planar gather -> cast -> CNN forward ->
 argmax / deferred-quantization probs), scanned over fixed-size center
 chunks, used by both the single-device path
 (engine.infer._forward_centers) and the shard_map'd multi-device path
-(parallel.infer_sharded._local_forward). Reference counterpart: the
+(parallel.infer_sharded). Reference counterpart: the
 per-batch ``net.predict`` / ``net.predict_proba`` loop of
-cnn_cort/base.py:421-440. Extracted so the two call sites cannot drift
-(round 3 shipped Pallas support in one but not the other — VERDICT r3
-weak-3/7).
+cnn_cort/base.py:421-440. Extracted so the two call sites cannot drift.
 """
 
 from __future__ import annotations
@@ -23,51 +21,30 @@ from subcort_tpu.models.triplanar import DEFAULT_SPEC, TriPlanarSpec
 def scan_forward_centers(params, padded_vol, centers, atlas_vecs,
                          chunk: int, want_probs: bool,
                          spec: TriPlanarSpec = DEFAULT_SPEC,
-                         use_pallas: bool = False,
-                         pallas_interpret: bool = False,
                          probs_dtype: str = "float32",
                          compute_dtype: str = "float32"):
-    """Classify ``centers`` (N, 3) against the HBM-resident ``padded_vol``.
+    """Classify ``centers`` (N, 3) against the device-resident ``padded_vol``.
 
     N must be a multiple of ``chunk`` (callers pad with sentinel rows that
-    clamp harmlessly and drop the outputs). ``use_pallas`` selects the
-    tile-aligned DMA gather kernel (ops.pallas_gather, ~10x the XLA gather
-    on TPU; ``pallas_interpret`` runs it in interpreter mode for CPU-mesh
-    tests). Returns ((N,) uint8 labels, (N, C) probs in ``probs_dtype`` —
-    uint8 quantization happens after the scan in one vectorized op, because
-    emitting uint8 blocks from inside a lax.scan body is pathologically
-    slow on TPU (measured 2.1 s vs 0.11 s readback)).
+    clamp harmlessly and drop the outputs). The engine ships ``padded_vol``
+    already cast to ``compute_dtype`` (a gather does no arithmetic, so
+    cast-then-gather equals gather-then-cast; the cast below is then a
+    no-op). Returns ((N,) uint8 labels, (N, C) probs in ``probs_dtype`` —
+    uint8 quantization happens after the scan in one vectorized op).
     """
     from subcort_tpu.ops import gather_triplanar
 
     n_chunks = centers.shape[0] // chunk
     cs = centers.reshape(n_chunks, chunk, 3)
     av = atlas_vecs.reshape(n_chunks, chunk, -1)
-
-    if use_pallas:
-        from subcort_tpu.ops.pallas_gather import (gather_triplanar_pallas,
-                                                   make_view_volumes)
-        view_vols = make_view_volumes(padded_vol)
+    cd = jnp.dtype(compute_dtype)
 
     def body(carry, inp):
         c, at = inp
-        if use_pallas:
-            ax, co, sa = gather_triplanar_pallas(
-                *view_vols, c, interpret=pallas_interpret)
-        else:
-            ax, co, sa = gather_triplanar(padded_vol, c)
-        cd = jnp.dtype(compute_dtype)
-        if ax.dtype != cd:
-            # Pallas path: the volume stays f32 (the DMA kernel's rolls are
-            # 32-bit only, and f32-gather-then-cast matches the
-            # normalize-then-cast precision rule), so patches cast here. On
-            # the XLA-gather path the volume ships pre-cast and the gathers
-            # already emit the compute dtype.
-            ax, co, sa = ax.astype(cd), co.astype(cd), sa.astype(cd)
-        if at.dtype != cd:
-            # priors always arrive f32 — cast regardless of which gather ran,
-            # else the atlas branch + head silently promote back to f32
-            at = at.astype(cd)
+        ax, co, sa = (v.astype(cd) for v in gather_triplanar(padded_vol, c))
+        # priors always arrive f32 — cast, else the atlas branch + head
+        # silently promote back to f32
+        at = at.astype(cd)
         probs = model_apply(params, {"axial": ax, "coronal": co,
                                      "sagittal": sa, "atlas": at}, spec=spec)
         labels = jnp.argmax(probs, axis=1).astype(jnp.uint8)

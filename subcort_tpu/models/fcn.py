@@ -2,8 +2,8 @@
 
 The reference (and our patch engine) evaluates the CNN once per candidate
 voxel on a gathered 32x32 patch; neighboring patches share 97% of their
-pixels, so per-patch evaluation redoes ~1000x the necessary conv work, and
-on TPU the patch *gather* itself is scalar-indexed and slow. This module
+pixels, so per-patch evaluation redoes ~1000x the necessary conv work,
+and the per-patch gather moves 3x32x32 values per voxel. This module
 evaluates each 2D branch *densely* over whole slices using the standard
 "à trous" (dilated-conv) transformation of a stride-2-pooled patch network,
 producing per-pixel 180-d features that are bit-equivalent (up to float
@@ -29,7 +29,7 @@ coordinate (x0-16, y0-16). Receptive field = 31 = patch 32 minus the
 even-patch asymmetry (centers sit at index 16 of 0..31: the window is
 [c-16, c+15]).
 
-This turns inference into large NHWC convs that tile onto the MXU —
+This turns inference into large NHWC convs —
 ~140k MACs/voxel/view instead of ~6.6M, and no gathers at all. Equality
 with the patch path is pinned by tests/test_fcn.py.
 """
@@ -49,17 +49,18 @@ from subcort_tpu.models.triplanar import (DEFAULT_SPEC, TriPlanarSpec,
 RF = 31  # receptive field of the dense branch (patch 32, even-centered)
 HALF = 16
 
-# f32 matmul/conv precision for this inference-only evaluator. On TPU, f32
-# contractions run as bf16 MXU passes: HIGH = 3 passes (error ~2^-22 per
-# product), HIGHEST = 6 passes (f32-exact). Validated on the full MNI bench
-# scan (204k candidate voxels, miccai2012_v1 weights): HIGH labels are
-# BIT-EQUAL to HIGHEST labels, uint8-quantized probability maps differ by at
-# most 1/255 (the wire quantization step), and the slab program runs 1.35x
-# faster (84.8 -> 62.7 ms device time, r5). The reference-exact patch engine
-# (models/triplanar.py) keeps HIGHEST — bench.py's fcn-vs-patch and Lasagne-
-# oracle canaries assert the two engines still agree at 1.0. Flip to HIGHEST
-# here if a future checkpoint ever shows label drift.
-CONV_PRECISION = lax.Precision.HIGH
+# f32 matmul/conv precision for this inference-only evaluator: HIGHEST,
+# i.e. f32 convs and dots without TF32. On the GPU, XLA runs HIGH and
+# DEFAULT as TF32 (10-bit mantissa), and the three-pass dot algorithms
+# (BF16_BF16_F32_X3/X6, TF32_TF32_F32_X3) leave the convs at TF32 too.
+# Measured on an H100 80GB HBM3 at 700 W, MNI bench scan (bench.py
+# make_scan, 204,403 candidate voxels, seeded weights): HIGHEST 33.1 ms of
+# device time with labels equal to the patch engine at 0.999995; HIGH
+# 11.3 ms but only 0.99876 of labels equal to HIGHEST; the three-pass
+# algorithms 13.6-17.3 ms at 0.99924. Only HIGHEST holds the FCN == patch
+# engine gate (>= 0.9999), so the exact path stays exact; bf16 is the
+# explicit fast opt-in (compute_dtype).
+CONV_PRECISION = lax.Precision.HIGHEST
 
 
 def _conv_dil(x, w, dil):
@@ -198,8 +199,7 @@ def fcn_forward_slab(params, slab: jnp.ndarray, atlas_vecs: jnp.ndarray,
         # Bitmask sparse wire (lossless): recover the (M,) lexicographic
         # candidate indices from the packed bbox mask, and rebuild the full
         # (M, C) prior row set from the compacted non-bg rows + packed bg
-        # flags. All integer/select ops — a few ms of VPU work replacing
-        # ~1 MB of h2d on the slow link.
+        # flags. All integer/select ops, replacing ~1 MB of h2d.
         assert gather_idx is None and isbg_bits is not None
         shifts = jnp.arange(8, dtype=jnp.uint8)
         cb = (((cand_bits[:, None] >> shifts) & 1) != 0).reshape(-1)
@@ -270,8 +270,7 @@ def fcn_forward_slab(params, slab: jnp.ndarray, atlas_vecs: jnp.ndarray,
         if want_probs:
             pr = jax.nn.softmax(logits, axis=-1)
             # uint8 quantization happens AFTER the scan in one vectorized
-            # op: emitting uint8 (chunk, 15) blocks from the scan body is
-            # pathologically slow on TPU (measured 2.1 s vs 0.11 s readback)
+            # op over the stacked (N, 15) probabilities
             pr = (pr.astype(jnp.float32)
                   if jnp.dtype(probs_dtype) == jnp.uint8
                   else pr.astype(probs_dtype))
@@ -300,8 +299,8 @@ def slab_flops(bbox_dims: Tuple[int, int, int], m_rows: int = None,
     extents plus the head MLP over ``m_rows`` voxels (``None`` = dense head,
     every bbox voxel). Matches the module docstring's ~140k MACs/voxel/view:
     per interior pixel the branch costs 9*(20 + 400 + 800 + 1600 + 2400
-    + 10800) = 144,180 MACs. Used by bench.py's MFU estimate; BN/PReLU/pool
-    vector ops are excluded (they are HBM-bound, not MXU work)."""
+    + 10800) = 144,180 MACs. BN/PReLU/pool element-wise ops are excluded
+    (memory-bound, not matrix work)."""
     bx, by, bz = (int(d) for d in bbox_dims)
     fc = spec.fc_conv
     # (batch axis, plane dims) per view — the fcn_forward_slab transposes

@@ -8,7 +8,7 @@ params pytree, handling every representational difference:
 
 - Lasagne ``Conv2DLayer`` defaults to ``flip_filters=True`` (true
   convolution); JAX convs are cross-correlations -> kernels are flipped
-  spatially on import and stored OIHW -> HWIO for NHWC TPU layout.
+  spatially on import and stored OIHW -> HWIO for the NHWC layout.
 - Lasagne BN parameter order is [beta, gamma, mean, inv_std]; inv_std is
   stored directly (eps baked in).
 - Dense-after-conv rows are ordered C-style over (channels, h, w) in

@@ -5,7 +5,7 @@ Reference counterpart: ``scipy.ndimage.label`` inside
 
 - :func:`label_components_np` — host path via scipy (default; fast enough
   at 14 calls/scan).
-- :func:`label_components_device` — TPU path: iterative min-label
+- :func:`label_components_device` — device path: iterative min-label
   propagation (6-connectivity, matching scipy's default structuring
   element) under ``lax.while_loop``. Each voxel starts with its linear
   index; every sweep takes the min over itself and its 6 in-mask
@@ -96,7 +96,7 @@ def _propagate_min(mask: jnp.ndarray, sweeps_per_check: int = 32,
 
 def label_components_device(mask: np.ndarray, *, sweeps_per_check: int = 32,
                             max_checks: int = 64):
-    """TPU connected components; same contract as :func:`label_components_np`
+    """On-device connected components; same contract as :func:`label_components_np`
     (labels densified to 1..num in scan order of component minimum index).
 
     Falls back to scipy (with a warning) if propagation did not reach its

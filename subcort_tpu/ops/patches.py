@@ -2,8 +2,8 @@
 
 The reference materializes patches on the host, one numpy slice per center
 (cnn_cort/base.py:272-308 ``get_patches``: pad by patch_half, then a Python
-loop of ~10^5-10^6 slice ops per scan — its #1 hot loop, SURVEY.md §3). The
-TPU-native design inverts this: the *padded volume lives in HBM* (~60 MB)
+loop of ~10^5-10^6 slice ops per scan — its #1 hot loop, SURVEY.md §3).
+This design inverts it: the *padded volume lives in device memory* (~60 MB)
 and patch extraction is a vectorized gather executed on device, fused by XLA
 with the conv forward that consumes it. No patch tensor ever crosses the
 host↔device boundary.

@@ -9,7 +9,7 @@ with no cross-host traffic on the hot path — DCN is touched only by
 Usage (same invocation on every host):
 
     from subcort_tpu.parallel.distributed import initialize, host_shard
-    initialize()                     # env-driven (GKE/TPU-VM) or explicit
+    initialize()                     # env-driven or explicit
     my_scans = host_shard(all_scan_paths)
     for path in my_scans:
         engine.segment_scan(path)

@@ -4,7 +4,7 @@
 Reference counterpart: the NiftyReg ``reg_aladin`` call at
 cnn_cort/base.py:510-513 (block-matching affine of the MNI template onto
 the subject T1). The C++ tool rebuilds that algorithm (block matching +
-LTS); this module instead solves the same problem the TPU-native way:
+LTS); this module instead solves the same problem on device:
 gradient descent on the registration cost *through the differentiable
 trilinear resampler* (jax_backend._trilinear), exactly like the FFD stage
 — so ``backend="jax"`` is self-contained end to end and a deployment

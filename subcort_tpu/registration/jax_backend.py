@@ -3,7 +3,7 @@
 A pure-JAX twin of ``tools/reg_resample`` (trilinear pull-resampling through
 either a world affine or a SUBCORT_CPP B-spline control grid — see
 native/src/geometry.hpp for the transform contracts). Used to warp the
-15 prior channels on TPU in one fused program, and as a differentiable
+15 prior channels on device in one fused program, and as a differentiable
 resampler for future on-device registration.
 """
 
@@ -21,10 +21,10 @@ from subcort_tpu.io import load_nii
 
 # every einsum below contracts f32 coordinates/displacements that feed the
 # transform.nii cross-runtime contract (native/src/geometry.hpp) and the
-# FFD/affine losses; TPU's default matmul precision runs f32 contractions
-# as bf16 passes (~2^-8 relative error), so pin HIGHEST like the model's
-# convs (models/triplanar.py:192) — the contraction dims here are tiny
-# (3-4 or the control-point count), so exactness is effectively free.
+# FFD/affine losses; the GPU's default f32 matmul precision is TF32 (~3
+# decimal digits), so pin HIGHEST like the model's convs — the contraction
+# dims here are tiny (3-4 or the control-point count), so exactness is
+# effectively free.
 _EXACT = lax.Precision.HIGHEST
 
 
@@ -162,7 +162,7 @@ def _bspline_axis_matrix(n: int, spacing, nc: int,
     holds the 4 basis weights of voxel v against the clamped control
     lattice (clip-accumulated at the edges, matching the gather loop this
     replaces). Dense-banded on purpose: nc is tiny (~20-40), so the three
-    per-axis contractions ride the MXU instead of 64 serialized gathers.
+    per-axis contractions are matmuls instead of 64 serialized gathers.
 
     ``vox_offset`` shifts this level's voxel coordinates into the canonical
     (finest-level) lattice frame — the half-resolution pyramid level maps
@@ -185,8 +185,8 @@ def bspline_dense_disp(disp: jnp.ndarray, spacing, shape,
 
     Mathematically identical to the naive 64-term gather accumulation
     (cubic B-spline tensor product, control i at voxel (i-1)*spacing_axis)
-    but ~an order of magnitude faster on TPU: 12 effective taps instead of
-    64, no gathers, and the contractions are matmuls. ``spacing`` is
+    but cheaper: 12 effective taps instead of 64, no gathers, and the
+    contractions are matmuls. ``spacing`` is
     per-axis (scalar = isotropic); may be traced or static."""
     if isinstance(spacing, (tuple, list)) or getattr(spacing, "ndim", 0):
         sx, sy, sz = spacing[0], spacing[1], spacing[2]

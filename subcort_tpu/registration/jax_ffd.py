@@ -1,4 +1,4 @@
-"""On-device (TPU) B-spline FFD registration — the differentiable second
+"""On-device B-spline FFD registration — the differentiable second
 backend to ``tools/reg_f3d`` (SURVEY.md §2.4 suggests exactly this).
 
 Same transform model and file contract as the C++ tool (geometry.hpp
@@ -14,7 +14,7 @@ NMI-driven FFD (cnn_cort/base.py:516-521); NMI is insensitive to
 monotone/nonlinear intensity remaps between template and subject where SSD
 is not. NMI here is a Parzen-window (cubic B-spline kernel) soft joint
 histogram, accumulated as chunked (C,B)ᵀ@(C,B) matmuls so the histogram
-build rides the MXU and memory stays bounded for full-size scans.
+build is a matrix product and memory stays bounded for full-size scans.
 
 Everything is jnp: the dense displacement is a separable B-spline tensor
 evaluation of the control grid, the warp is a differentiable trilinear
@@ -120,8 +120,9 @@ def _nmi(ref01: jnp.ndarray, warped01: jnp.ndarray, nbins: int,
          chunk: int = 1 << 17) -> jnp.ndarray:
     """Normalized mutual information (Studholme) of two [0,1] volumes.
 
-    Joint histogram via chunked Wᵣᵀ@W𝓌 matmuls (MXU path); differentiable
-    through the warped-image weights."""
+    Joint histogram via chunked Wᵣᵀ@W𝓌 matmuls at exact f32 precision
+    (a TF32 product keeps ~3 decimal digits of each Parzen weight);
+    differentiable through the warped-image weights."""
     r = ref01.reshape(-1)
     w = warped01.reshape(-1)
     n = r.shape[0]
@@ -135,7 +136,7 @@ def _nmi(ref01: jnp.ndarray, warped01: jnp.ndarray, nbins: int,
         rc, wc, vc = xs
         wr = _soft_hist_weights(rc, nbins) * vc[:, None]
         ww = _soft_hist_weights(wc, nbins)
-        return H + wr.T @ ww, None
+        return H + jnp.matmul(wr.T, ww, precision=_EXACT), None
 
     H, _ = jax.lax.scan(body, jnp.zeros((nbins, nbins), jnp.float32),
                         (r.reshape(nc, chunk), w.reshape(nc, chunk),

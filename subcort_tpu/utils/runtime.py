@@ -7,26 +7,27 @@ import os
 import time
 
 
-def enable_compilation_cache(path: str | None = None) -> None:
+_REPO_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache")
+
+
+def enable_compilation_cache() -> None:
     """Enable JAX's persistent compilation cache.
 
-    The TPU remote compiler in some deployments takes minutes for the full
-    training step; the persistent cache makes that a once-ever cost (keyed
-    by HLO hash, so identical shapes/programs hit across processes and
-    sessions). Safe to call multiple times.
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already keeps its cache
+    there and nothing else is configured here. Otherwise the cache lives at
+    the fixed in-checkout path ``<repo>/.jax_cache`` (git-ignored): the path
+    is part of the cache key, so a directory that moves never hits. Safe to
+    call multiple times.
     """
     import jax
 
-    path = path or os.environ.get("SUBCORT_COMPILE_CACHE",
-                                  os.path.expanduser("~/.cache/subcort_jax"))
-    os.makedirs(path, exist_ok=True)
-    try:
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        # cache everything, including programs the backend marks non-cacheable
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:
-        pass  # older jax: flag names differ; cache is an optimization only
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", _REPO_CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    # cache everything, including programs the backend marks non-cacheable
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
 
 
 @contextlib.contextmanager

@@ -4,6 +4,7 @@ compilation cache, device connected components already in test_parallel."""
 import os
 
 import numpy as np
+import pytest
 
 import jax
 
@@ -14,6 +15,8 @@ from subcort_tpu.parallel.distributed import all_hosts_mean, host_shard
 from subcort_tpu.utils import enable_compilation_cache
 
 TINY = TriPlanarSpec(patch_size=24)
+_REPO_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
 
 
 def _tiny_index(rng, n=64, s=2, extent=16):
@@ -54,11 +57,48 @@ def test_all_hosts_mean_single_host():
     assert abs(all_hosts_mean(0.84) - 0.84) < 1e-6
 
 
-def test_enable_compilation_cache_idempotent(tmp_path):
-    enable_compilation_cache(str(tmp_path / "cache"))
-    enable_compilation_cache(str(tmp_path / "cache"))
+_CACHE_OPTIONS = ("jax_compilation_cache_dir",
+                  "jax_persistent_cache_min_compile_time_secs",
+                  "jax_persistent_cache_min_entry_size_bytes")
+
+
+@pytest.fixture()
+def restore_cache_config():
+    """enable_compilation_cache sets process-global jax options; put them
+    back so the rest of this worker's tests compile as before."""
+    saved = {k: getattr(jax.config, k) for k in _CACHE_OPTIONS}
+    yield
+    for k, v in saved.items():
+        jax.config.update(k, v)
+
+
+def test_enable_compilation_cache_idempotent(restore_cache_config,
+                                              monkeypatch):
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    enable_compilation_cache()
+    enable_compilation_cache()
+    assert jax.config.jax_compilation_cache_dir == _REPO_CACHE
     x = jax.numpy.ones((8, 8))
     assert float((x @ x).sum()) == 512.0
+
+
+@pytest.mark.parametrize("env_dir", [False, True],
+                         ids=["repo_default", "env_dir"])
+def test_enable_compilation_cache_directory(env_dir, tmp_path,
+                                            restore_cache_config,
+                                            monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR, where set, is JAX's own: the code sets no
+    directory of its own. Otherwise the cache is <repo>/.jax_cache."""
+    before = str(tmp_path / "preset")
+    jax.config.update("jax_compilation_cache_dir", before)
+    if env_dir:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    enable_compilation_cache()
+    assert jax.config.jax_compilation_cache_dir == (
+        before if env_dir else _REPO_CACHE)
+    assert jax.config.jax_persistent_cache_min_entry_size_bytes == 0
 
 
 def test_profile_trace_writes_trace(tmp_path):

@@ -1,5 +1,6 @@
 """CLI surface tests: argument parsing and the evaluate subcommand
-(the heavier train/infer/run flows are driven end-to-end on TPU)."""
+(the heavier train/infer/run flows are driven end-to-end on the GPU by
+chip_smoke.py)."""
 
 import json
 

@@ -1,9 +1,12 @@
 """Config contract tests (reference: load_options.py:11-59, configuration.cfg)."""
 
 import configparser
+import os
 import textwrap
 
-from subcort_tpu.config import Options, load_options
+import pytest
+
+from subcort_tpu.config import Options, load_options, select_platform
 
 CFG = textwrap.dedent("""\
     [database]
@@ -152,3 +155,19 @@ def test_tpu_intensity_augment_parses(tmp_path):
     o = _load(tmp_path, CFG + "\n[tpu]\nintensity_augment = 0.5\n")
     assert o.intensity_augment == 0.5
     assert _load(tmp_path).intensity_augment == 0.0
+
+
+@pytest.mark.parametrize("mode,platform", [
+    ("cpu", "cpu"), ("cuda", "cuda"), ("cuda0", "cuda"), ("gpu", "cuda"),
+    ("tpu", None)])
+def test_select_platform(mode, platform, monkeypatch):
+    """mode maps onto JAX_PLATFORMS with no CPU fallback for the GPU; any
+    other mode is refused with the accepted values."""
+    monkeypatch.delenv("JAX_PLATFORMS", raising=False)
+    if platform is None:
+        with pytest.raises(ValueError, match="cuda, cudaN, gpu or cpu"):
+            select_platform(Options(mode=mode))
+        assert "JAX_PLATFORMS" not in os.environ
+    else:
+        select_platform(Options(mode=mode))
+        assert os.environ["JAX_PLATFORMS"] == platform

@@ -1,7 +1,7 @@
 """Two-process jax.distributed smoke test (SURVEY.md §2.5 DCN plan).
 
 The reference is strictly single-process; multi-host subject-parallel
-sweeps are a TPU-native addition (parallel/distributed.py). This test runs
+sweeps are an addition of this framework (parallel/distributed.py). This test runs
 the real thing in CI: two OS processes, a local coordinator, gloo CPU
 collectives — initialize() / host_shard() / all_hosts_mean() end to end.
 It caught a real bug: all_hosts_mean's original device_put of the full

@@ -108,7 +108,7 @@ def test_test_scan_empty_mask_contract(params, phantom, tmp_path):
 def test_patch_engine_compile_bucketing(params, phantom, rng):
     """Differently-sized candidate sets in the same chunk-count ladder
     bucket (pow2 and 3·pow2/4 rungs — infer._round_up_pow2) must reuse the
-    compiled program (remote compiles cost minutes)."""
+    compiled program (each new shape is a compile)."""
     from subcort_tpu.engine.infer import _forward_centers
 
     image, atlas, _ = phantom
@@ -481,7 +481,7 @@ def test_bf16_xla_path_matches_cast_inside_semantics(params, phantom, rng):
             params_bf16, padded, jnp.asarray(centers), jnp.asarray(vecs),
             chunk, True, compute_dtype="bfloat16", probs_dtype="float32")
 
-    lab_f32vol, probs_f32vol = run(np.float32)      # Pallas-style: cast inside
+    lab_f32vol, probs_f32vol = run(np.float32)      # cast inside the scan
     lab_bf16vol, probs_bf16vol = run(jnp.bfloat16)  # XLA path: pre-cast volume
     np.testing.assert_array_equal(np.asarray(lab_f32vol),
                                   np.asarray(lab_bf16vol))
@@ -491,8 +491,7 @@ def test_bf16_xla_path_matches_cast_inside_semantics(params, phantom, rng):
 
 def test_test_scan_odd_batch_size_chunk_invariance(params, phantom, tmp_path):
     """test_batch_size is free-form in the config contract; the internal
-    chunk rounds to a Pallas-BLOCK multiple (so odd values keep the DMA
-    gather on TPU) and any chunk yields identical outputs."""
+    chunk follows it, and any chunk yields identical outputs."""
     image, atlas, mask = phantom
     s_odd = _write_subject(tmp_path, "odd", image, atlas, mask)
     s_ref = _write_subject(tmp_path, "ref", image, atlas, mask)

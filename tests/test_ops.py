@@ -6,6 +6,7 @@ the reference's ``get_patches`` semantics (base.py:272-308): per-axis pad of
 of the singleton view axis.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -70,6 +71,52 @@ def test_numpy_twin_matches_jax(volume, rng):
     np_out = gather_triplanar_np(volume, centers)
     for a, b in zip(jax_out, np_out):
         np.testing.assert_array_equal(np.asarray(a), b)
+
+
+def _gather_case(case, rng):
+    """(volumes (S, X, Y, Z), centers (N, 4) with the subject index first)."""
+    if case == "interior":
+        vols = rng.standard_normal((1, 40, 36, 28)).astype(np.float32)
+        n = 64
+    elif case == "border":
+        vols = rng.standard_normal((1, 34, 33, 35)).astype(np.float32)
+        corners = np.asarray([[0, 0, 0], [33, 32, 34], [0, 32, 17],
+                              [33, 0, 0]], np.int32)
+        return vols, np.concatenate([np.zeros((4, 1), np.int32), corners], 1)
+    else:  # multi_subject
+        vols = rng.standard_normal((3, 30, 26, 22)).astype(np.float32)
+        n = 96
+    shape = vols.shape[1:]
+    centers = np.stack([rng.integers(0, vols.shape[0], n)] +
+                       [rng.integers(0, s, n) for s in shape],
+                       axis=1).astype(np.int32)
+    return vols, centers
+
+
+@pytest.mark.parametrize("case", ["interior", "border", "multi_subject"])
+def test_gathers_match_numpy_twin(case, rng):
+    """The inference gather (ops.patches.gather_triplanar, one padded
+    volume) and the training gather (engine.train.gather_triplanar_subjects,
+    a stack of padded volumes) against the host numpy twin, center by
+    center, bit-exact."""
+    from subcort_tpu.engine.train import gather_triplanar_subjects
+
+    vols, centers = _gather_case(case, rng)
+    want = [np.empty((len(centers), 32, 32), np.float32) for _ in range(3)]
+    for s in range(vols.shape[0]):
+        rows = centers[:, 0] == s
+        if not rows.any():
+            continue
+        for w, g in zip(want, gather_triplanar_np(vols[s], centers[rows, 1:])):
+            w[rows] = g
+        got = gather_triplanar(pad_volume(jnp.asarray(vols[s])),
+                               jnp.asarray(centers[rows, 1:]))
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(np.asarray(g), w[rows])
+    padded = jnp.stack([pad_volume(jnp.asarray(v)) for v in vols])
+    got = gather_triplanar_subjects(padded, jnp.asarray(centers))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(g), w)
 
 
 def test_atlas_gather_and_bg_fixup(rng):

@@ -1,7 +1,7 @@
 """CI-speed robustness gate (VERDICT r4 missing-2's "CI test with floors").
 
-The full gate (bench_robust.py / ROBUSTQUAL_r05.json) trains at near-product
-scale on the TPU and sweeps all six degradations; this variant proves, on
+The full gate (bench_robust.py) trains at near-product
+scale on the GPU and sweeps all six degradations; this variant proves, on
 the CPU mesh inside CI budget, that the FULL default pipeline — register on
 a cache miss (native NMI reg_f3d) -> warp priors -> normalize -> segment ->
 post-process -> output files — survives realistic acquisition degradation

@@ -155,7 +155,7 @@ def test_trainer_resume(tmp_path, rng):
 
 
 def test_trainer_data_parallel_mesh(tmp_path, rng):
-    """DP over the 8-device CPU mesh: same code path as a TPU slice."""
+    """DP over the 8-device CPU mesh: same code path as several GPUs."""
     assert len(jax.devices()) == 8
     opts = Options(experiment="exp5", batch_size=8, max_epochs=2, patience=10,
                    train_split=0.25, net_verbose=0, load_weights=False,
@@ -167,54 +167,44 @@ def test_trainer_data_parallel_mesh(tmp_path, rng):
     assert len(hist) == 2 and np.isfinite(hist[-1]["train_loss"])
 
 
-def test_trainer_pallas_mesh_parity(tmp_path, rng, monkeypatch):
-    """Multi-device Pallas train path (VERDICT r2 weak-3): with the DMA
-    gather forced on (interpret mode) over the 8-device CPU mesh, Trainer.fit
-    must produce the same losses/params as the XLA-gather mesh path — the
-    gather is bit-identical, so any drift means the shard_map wiring is
-    wrong."""
-    from subcort_tpu.models.triplanar import DEFAULT_SPEC
+def test_train_step_mesh_matches_single_device(rng):
+    """One full-width train step with the batch sharded over the 8-device
+    mesh (BN statistics and gradients all-reduced) against the same step on
+    one device: the loss, and the SGD update (the gradient times the
+    learning rate), agree up to reduction order."""
+    import optax
 
-    def run(force):
-        if force:
-            monkeypatch.setenv("SUBCORT_FORCE_PALLAS", "1")
-        else:
-            monkeypatch.delenv("SUBCORT_FORCE_PALLAS", raising=False)
-        opts = Options(experiment=f"expp{int(force)}", batch_size=16,
-                       max_epochs=1, patience=10, train_split=0.25,
-                       net_verbose=0, load_weights=False, seed=7,
-                       data_parallel=8)
-        tr = Trainer(opts, spec=DEFAULT_SPEC,
-                     weights_path=str(tmp_path / f"nets{int(force)}"))
-        # full-spec index (patch 32 halo): 288 samples -> 216 train = one
-        # full 128-sample mesh step + a 72-sample validation batch
-        half = DEFAULT_SPEC.patch_size // 2
-        r = np.random.default_rng(5)
-        vols = r.standard_normal((2, 20 + 2 * half, 20 + 2 * half,
-                                  20 + 2 * half)).astype(np.float32)
-        n = 288
-        centers = np.stack([r.integers(0, 2, n)] +
-                           [r.integers(0, 20, n) for _ in range(3)],
-                           axis=1).astype(np.int32)
-        idx = TrainingIndex(vols, centers,
-                            r.integers(0, 15, n).astype(np.int32),
-                            r.random((n, 15)).astype(np.float32), ["a", "b"])
-        hist = tr.fit(idx)
-        return tr, hist
+    from subcort_tpu.engine.train import TRAIN_SPEC, make_train_step
+    from subcort_tpu.models import init_params
+    from subcort_tpu.parallel import make_mesh, replicated, shard_batch
 
-    tr_p, hist_p = run(True)
-    assert tr_p._pallas_strides is not None, "forced Pallas path not taken"
-    tr_x, hist_x = run(False)
-    assert tr_x._pallas_strides is None
-    assert np.isclose(hist_p[0]["train_loss"], hist_x[0]["train_loss"],
-                      rtol=1e-5)
-    assert np.isclose(hist_p[0]["valid_loss"], hist_x[0]["valid_loss"],
-                      rtol=1e-5)
-    leaves_p = jax.tree_util.tree_leaves(tr_p.params)
-    leaves_x = jax.tree_util.tree_leaves(tr_x.params)
-    for a, b in zip(leaves_p, leaves_x):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-5, atol=1e-6)
+    half = TRAIN_SPEC.patch_size // 2
+    vols = rng.standard_normal((2,) + (20 + 2 * half,) * 3).astype(np.float32)
+    n = 64
+    batch = {"centers": np.stack([rng.integers(0, 2, n)] +
+                                 [rng.integers(0, 20, n) for _ in range(3)],
+                                 axis=1).astype(np.int32),
+             "labels": rng.integers(0, 15, n).astype(np.int32),
+             "atlas": rng.random((n, 15)).astype(np.float32)}
+    opt = optax.sgd(1e-3)
+    step = make_train_step(opt, TRAIN_SPEC)
+    p0 = init_params(jax.random.key(3))
+
+    def run(ndev):
+        mesh = make_mesh(ndev)
+        p, st, v = jax.device_put((p0, opt.init(p0), vols), replicated(mesh))
+        b = shard_batch(batch, mesh)
+        new, _, loss = step(p, st, v, b["centers"], b["labels"], b["atlas"],
+                            jax.random.key(4))
+        delta = [np.asarray(x) - np.asarray(x0) for x, x0 in
+                 zip(jax.tree_util.tree_leaves(new),
+                     jax.tree_util.tree_leaves(p0))]
+        return float(loss), np.concatenate([d.ravel() for d in delta])
+
+    loss1, d1 = run(1)
+    loss8, d8 = run(8)
+    assert np.isclose(loss8, loss1, rtol=1e-5)
+    assert np.linalg.norm(d8 - d1) <= 1e-4 * np.linalg.norm(d1)
 
 
 def test_augmentation_path_runs(tmp_path, rng):

@@ -1,7 +1,7 @@
 """CI-speed training-quality gate (VERDICT r2 next-1).
 
 The full gate (bench_trainqual.py) fits to early-stop at near-reference
-scale on the TPU; this variant proves on the CPU mesh, inside CI budget,
+scale on the GPU; this variant proves on the CPU mesh, inside CI budget,
 that ``Trainer.fit`` *converges to a model that segments* — not merely that
 loss decreases. The phantom here is the easy end of the family (perfectly
 aligned priors, low noise) so a few epochs suffice; the assertion is a real
